@@ -1,4 +1,4 @@
-// Native mesh-runtime kernels for iifea_tpu.
+// Native mesh-runtime kernels for iifea.
 //
 // Host-side replacements for the heavy O(n) preprocessing the reference
 // delegates to DOLFIN's C++ mesh runtime (SURVEY.md §2.3 N1): unique-facet

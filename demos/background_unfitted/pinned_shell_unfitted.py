@@ -25,12 +25,12 @@ sys.path.insert(
 import numpy as np
 import jax.numpy as jnp
 
-from iifea_tpu.mesh.bspline import BSplineSpace2D
-from iifea_tpu.mesh.core import Mesh
-from iifea_tpu.mesh.generators import rectangle_mesh
-from iifea_tpu.models.kl_shell import KLShellProblem
-from iifea_tpu.solvers import solve_nonlinear
-from iifea_tpu.utils.logging import log_info
+from iifea.mesh.bspline import BSplineSpace2D
+from iifea.mesh.core import Mesh
+from iifea.mesh.generators import rectangle_mesh
+from iifea.models.kl_shell import KLShellProblem
+from iifea.solvers import solve_nonlinear
+from iifea.utils.logging import log_info
 
 parser = argparse.ArgumentParser()
 parser.add_argument('--ref', dest='ref', default='4',

@@ -17,14 +17,14 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from iifea_tpu.api import average_cell_diagonal
-from iifea_tpu.mesh.core import FunctionSpace, Mesh
-from iifea_tpu.mesh.generators import generate_unfitted_mesh, transfer_matrix_simplex
-from iifea_tpu.models.poisson import source_fn, u_exact_fn
-from iifea_tpu.ops.assembly import Form, Term, build_cell_domain, build_facet_domain, integrate
-from iifea_tpu.ops.projection import assemble_background_system
-from iifea_tpu.solvers import solve_ksp
-from iifea_tpu.utils.logging import log_info
+from iifea.api import average_cell_diagonal
+from iifea.mesh.core import FunctionSpace, Mesh
+from iifea.mesh.generators import generate_unfitted_mesh, transfer_matrix_simplex
+from iifea.models.poisson import source_fn, u_exact_fn
+from iifea.ops.assembly import Form, Term, build_cell_domain, build_facet_domain, integrate
+from iifea.ops.projection import assemble_background_system
+from iifea.solvers import solve_ksp
+from iifea.utils.logging import log_info
 
 
 def str2bool(v):

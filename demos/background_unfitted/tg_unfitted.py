@@ -22,13 +22,13 @@ sys.path.insert(
 import numpy as np
 import jax.numpy as jnp
 
-from iifea_tpu.api import l2_project
-from iifea_tpu.mesh.core import Mesh
-from iifea_tpu.mesh.generators import rectangle_mesh, transfer_matrix_simplex
-from iifea_tpu.models.navier_stokes import TaylorGreenProblem, u_exact
-from iifea_tpu.ops.extraction import ExtractionOperator
-from iifea_tpu.solvers import solve_nonlinear
-from iifea_tpu.utils.logging import log_info
+from iifea.api import l2_project
+from iifea.mesh.core import Mesh
+from iifea.mesh.generators import rectangle_mesh, transfer_matrix_simplex
+from iifea.models.navier_stokes import TaylorGreenProblem, u_exact
+from iifea.ops.extraction import ExtractionOperator
+from iifea.solvers import solve_nonlinear
+from iifea.utils.logging import log_info
 
 
 def str2bool(v):

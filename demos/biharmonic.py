@@ -11,12 +11,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp
 
-from iifea_tpu.mesh.io import read_mesh
-from iifea_tpu.models.biharmonic import BiharmonicProblem
-from iifea_tpu.ops.extraction import ExtractionOperator
-from iifea_tpu.ops.projection import assemble_background_system
-from iifea_tpu.solvers import solve_ksp, solve_newtons_linear
-from iifea_tpu.utils.logging import log_info
+from iifea.mesh.io import read_mesh
+from iifea.models.biharmonic import BiharmonicProblem
+from iifea.ops.extraction import ExtractionOperator
+from iifea.ops.projection import assemble_background_system
+from iifea.solvers import solve_ksp, solve_newtons_linear
+from iifea.utils.logging import log_info
 
 
 def str2bool(v):
@@ -91,7 +91,7 @@ if args.mesh_root == "synthetic":
     # stencil probe (quadratic splines couple control points 3 apart
     # across straddling fg cells) + MG-preconditioned GMRES.
     if dim == 3:
-        from iifea_tpu.mesh.generators import immersed_cube_bspline_problem
+        from iifea.mesh.generators import immersed_cube_bspline_problem
 
         # NESTED grids (n_fg = 2*n_bg) for the same reason as the 2D branch
         # below — straddling fg cells break P2 extraction across the
@@ -101,7 +101,7 @@ if args.mesh_root == "synthetic":
             n_fg=2 * n_bg, n_bg=n_bg
         )
     else:
-        from iifea_tpu.mesh.generators import immersed_square_bspline_problem
+        from iifea.mesh.generators import immersed_square_bspline_problem
 
         # NESTED grids (n_fg = 2*n_bg, fg lines contain every bg knot): each
         # fg cell sees ONE polynomial piece of the quadratic spline, so the

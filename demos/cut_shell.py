@@ -14,11 +14,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
-from iifea_tpu.mesh.io import read_mesh
-from iifea_tpu.models.kl_shell import KLShellProblem
-from iifea_tpu.ops.extraction import ExtractionOperator
-from iifea_tpu.solvers import solve_nonlinear
-from iifea_tpu.utils.logging import log_info
+from iifea.mesh.io import read_mesh
+from iifea.models.kl_shell import KLShellProblem
+from iifea.ops.extraction import ExtractionOperator
+from iifea.solvers import solve_nonlinear
+from iifea.utils.logging import log_info
 
 
 def str2bool(v):
@@ -97,7 +97,7 @@ bot_hist = np.zeros((N_STEPS, 3))
 
 start_step = 0
 if args.ckpt:
-    from iifea_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
+    from iifea.utils.checkpoint import load_checkpoint, save_checkpoint
 
     resumed = load_checkpoint(args.ckpt)
     if resumed is not None:
@@ -115,7 +115,7 @@ series = None
 if str2bool(args.wv):
     import jax
 
-    from iifea_tpu.utils.fieldio import PVDSeries
+    from iifea.utils.fieldio import PVDSeries
 
     series = PVDSeries("bent_shell_results/disp.pvd")
     # mapped 3D midsurface as the viz geometry (the parametric mesh is 2D)

@@ -14,13 +14,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
-from iifea_tpu.mesh.core import Mesh
-from iifea_tpu.mesh.io import read_mesh
-from iifea_tpu.models.elasticity import ElasticityProblem
-from iifea_tpu.ops.extraction import ExtractionOperator
-from iifea_tpu.ops.projection import assemble_background_system
-from iifea_tpu.solvers import solve_ksp
-from iifea_tpu.utils.logging import log_info
+from iifea.mesh.core import Mesh
+from iifea.mesh.io import read_mesh
+from iifea.models.elasticity import ElasticityProblem
+from iifea.ops.extraction import ExtractionOperator
+from iifea.ops.projection import assemble_background_system
+from iifea.solvers import solve_ksp
+from iifea.utils.logging import log_info
 
 
 def str2bool(v):
@@ -71,8 +71,8 @@ if args.mesh_root == "synthetic":
     # product path here is the on-device iterative solve (SURVEY N5 —
     # "the product path is iterative"): block stencil probe + geometric
     # multigrid V-cycle preconditioned CG, all on device.
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.elasticity import ImmersedElasticityProblem
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.elasticity import ImmersedElasticityProblem
 
     n = 8 * 2 ** int(ref)
     n_bg = max(n // 2, 4)

@@ -11,11 +11,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp
 
-from iifea_tpu.mesh.io import read_mesh
-from iifea_tpu.models.kl_shell import KLShellProblem
-from iifea_tpu.ops.extraction import ExtractionOperator
-from iifea_tpu.solvers import solve_nonlinear
-from iifea_tpu.utils.logging import log_info
+from iifea.mesh.io import read_mesh
+from iifea.models.kl_shell import KLShellProblem
+from iifea.ops.extraction import ExtractionOperator
+from iifea.solvers import solve_nonlinear
+from iifea.utils.logging import log_info
 
 parser = argparse.ArgumentParser()
 parser.add_argument('--ref', dest='ref', default='5',

@@ -4,7 +4,7 @@ reference demos/poisson.py (same flags, same printed report, same CSV schema).
     python3 demos/poisson.py --k 1 --ref 3 --dim 2
 
 Multi-device execution replaces mpirun: pass --devices N (or run under a JAX
-multi-host setup); sharding is handled by iifea_tpu.parallel, not MPI ranks.
+multi-host setup); sharding is handled by iifea.parallel, not MPI ranks.
 """
 import argparse
 import os
@@ -14,13 +14,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp
 
-from iifea_tpu.mesh.io import read_mesh
-from iifea_tpu.mesh.generators import immersed_square_problem
-from iifea_tpu.models.poisson import PoissonProblem
-from iifea_tpu.ops.extraction import ExtractionOperator
-from iifea_tpu.ops.projection import assemble_background_system
-from iifea_tpu.solvers import solve_ksp
-from iifea_tpu.utils.logging import log_info
+from iifea.mesh.io import read_mesh
+from iifea.mesh.generators import immersed_square_problem
+from iifea.models.poisson import PoissonProblem
+from iifea.ops.extraction import ExtractionOperator
+from iifea.ops.projection import assemble_background_system
+from iifea.solvers import solve_ksp
+from iifea.utils.logging import log_info
 
 
 def str2bool(v):
@@ -60,9 +60,9 @@ parser.add_argument('--Ex', dest='Ex', default=True,
 parser.add_argument('--devices', dest='devices', default=1, type=int,
                     help='Solve SPMD over N devices (the mpirun analog): '
                          'fused-extraction sharded assembly + CG '
-                         '(iifea_tpu.parallel.sharding). For a virtual mesh: '
+                         '(iifea.parallel.sharding). For a virtual mesh: '
                          'XLA_FLAGS=--xla_force_host_platform_device_count=N '
-                         'IIFEA_PLATFORM=cpu')
+                         'JAX_PLATFORMS=cpu')
 parser.add_argument('--mesh-root', dest='mesh_root',
                     default=os.environ.get("IIFEA_MESH_ROOT",
                                            "/root/reference/meshes"),
@@ -85,7 +85,7 @@ if args.mesh_root == "synthetic":
     # MORIS artifacts are stripped from the reference checkout (e.g. the
     # finer 3D cubes), and any scale beyond them
     if dim == 3:
-        from iifea_tpu.mesh.generators import immersed_cube_problem
+        from iifea.mesh.generators import immersed_cube_problem
         n = 6 * 2 ** int(ref)
         mesh_f, M_synth = immersed_cube_problem(
             n_fg=int(n * 1.19), n_bg=n
@@ -121,7 +121,7 @@ if beta_auto:
         log_info('[poisson] --beta auto: nonsymmetric Nitsche is '
                  'penalty-free; keeping beta unused')
     else:
-        from iifea_tpu.models.poisson import select_coercive_beta
+        from iifea.models.poisson import select_coercive_beta
 
         beta_sel, prob = select_coercive_beta(mesh_f, M, k=k, beta0=10.0)
         log_info(f'[poisson] auto-selected Nitsche beta = {beta_sel} '
@@ -130,9 +130,9 @@ if beta_auto:
 if args.devices > 1:
     # SPMD path (the mpirun analog): extraction fused into the element
     # gather, one psum per apply, replicated background vector — see
-    # iifea_tpu/parallel/sharding.py. Symmetric Nitsche is SPD => CG.
+    # iifea/parallel/sharding.py. Symmetric Nitsche is SPD => CG.
     import jax
-    from iifea_tpu.parallel.sharding import (
+    from iifea.parallel.sharding import (
         ShardedProjectedSystem, make_device_mesh,
     )
 
@@ -141,7 +141,7 @@ if args.devices > 1:
             f"--devices {args.devices}: only {len(jax.devices())} devices "
             "visible. Provision a virtual mesh, e.g.\n"
             "  XLA_FLAGS=--xla_force_host_platform_device_count="
-            f"{args.devices} IIFEA_PLATFORM=cpu python demos/poisson.py ..."
+            f"{args.devices} JAX_PLATFORMS=cpu python demos/poisson.py ..."
         )
     sys_sh = ShardedProjectedSystem(prob.form, M, make_device_mesh(args.devices))
     step = jax.jit(sys_sh.make_step(rtol=1e-8, atol=1e-9, max_it=100000))
@@ -172,7 +172,7 @@ if write_file:
 if str2bool(args.wv):
     import numpy as np
 
-    from iifea_tpu.utils.fieldio import write_vtu
+    from iifea.utils.fieldio import write_vtu
 
     import jax
 

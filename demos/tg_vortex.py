@@ -13,12 +13,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
-from iifea_tpu.api import l2_project
-from iifea_tpu.mesh.io import read_mesh
-from iifea_tpu.models.navier_stokes import TaylorGreenProblem, u_exact
-from iifea_tpu.ops.extraction import ExtractionOperator
-from iifea_tpu.solvers import solve_nonlinear
-from iifea_tpu.utils.logging import log_info
+from iifea.api import l2_project
+from iifea.mesh.io import read_mesh
+from iifea.models.navier_stokes import TaylorGreenProblem, u_exact
+from iifea.ops.extraction import ExtractionOperator
+from iifea.solvers import solve_nonlinear
+from iifea.utils.logging import log_info
 
 
 def str2bool(v):
@@ -95,7 +95,7 @@ write_file = str2bool(args.wf)
 
 lattice_shape = None
 if args.mesh_root == "synthetic":
-    from iifea_tpu.mesh.generators import immersed_square_problem
+    from iifea.mesh.generators import immersed_square_problem
 
     n = 8 * 2 ** int(ref)
     n_bg = max(n // 2, 4)
@@ -147,7 +147,7 @@ if str2bool(args.pin_pressure):
     # is not enough — an M-referenced dof can still have a zero diagonal
     # when the fg dofs it feeds lie outside the integration domain, and
     # pinning a dead dof leaves the constant-pressure null mode in place.
-    from iifea_tpu.ops.projection import BackgroundOperator
+    from iifea.ops.projection import BackgroundOperator
 
     blocks0 = prob.form.jacobian_blocks(
         up_f, {"up_old": up_old_f}, {"t": jnp.asarray(0.0)}
@@ -159,7 +159,7 @@ if str2bool(args.pin_pressure):
 t = 0.0
 start_step = 0
 if args.ckpt:
-    from iifea_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
+    from iifea.utils.checkpoint import load_checkpoint, save_checkpoint
 
     resumed = load_checkpoint(args.ckpt)
     if resumed is not None:
@@ -172,7 +172,7 @@ if args.ckpt:
 
 series = None
 if str2bool(args.wv):
-    from iifea_tpu.utils.fieldio import PVDSeries
+    from iifea.utils.fieldio import PVDSeries
 
     series = PVDSeries("tg_results/fields.pvd")
 

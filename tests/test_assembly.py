@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iifea_tpu.mesh.core import FunctionSpace, Mesh
-from iifea_tpu.mesh.generators import rectangle_mesh
-from iifea_tpu.ops.assembly import Form, Term, build_cell_domain, integrate
+from iifea.mesh.core import FunctionSpace, Mesh
+from iifea.mesh.generators import rectangle_mesh
+from iifea.ops.assembly import Form, Term, build_cell_domain, integrate
 
 
 def laplace_kernel(u_loc, aux_loc, ctx, params):
@@ -145,7 +145,7 @@ def test_jacobian_and_residual_fused_consistency():
 
 
 def test_auto_chunk_env(monkeypatch):
-    from iifea_tpu.ops.assembly import _auto_chunk, _DEFAULT_JAC_CHUNK
+    from iifea.ops.assembly import _auto_chunk, _DEFAULT_JAC_CHUNK
 
     monkeypatch.delenv("IIFEA_ASSEMBLY_CHUNK", raising=False)
     assert _auto_chunk(None) == _DEFAULT_JAC_CHUNK
@@ -160,8 +160,8 @@ def test_auto_chunk_env(monkeypatch):
 def test_residual_chunked_matches_unchunked():
     """Form.residual(chunk=...) (the biharmonic-workload HBM fix) is
     numerically identical to the one-shot evaluation."""
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.poisson import PoissonProblem
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.poisson import PoissonProblem
 
     mesh_f, M = immersed_square_problem(n_fg=16, n_bg=8)
     prob = PoissonProblem(mesh_f, k=1, sym=True, beta_value=10)

@@ -3,7 +3,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from iifea_tpu.mesh.bspline import (
+from iifea.mesh.bspline import (
     BSplineSpace2D,
     basis_values,
     uniform_open_knots,
@@ -73,8 +73,8 @@ def test_bspline_extraction_reproduces_in_space_functions_at_nodes():
     mesh/generators.py:immersed_square_bspline_problem and the
     biharmonic_synthetic steep study.)"""
     import numpy as np
-    from iifea_tpu.mesh.generators import immersed_square_bspline_problem
-    from iifea_tpu.mesh.core import FunctionSpace
+    from iifea.mesh.generators import immersed_square_bspline_problem
+    from iifea.mesh.core import FunctionSpace
 
     n_bg = 8
     for n_fg in (2 * n_bg, 2 * (n_bg + 1)):

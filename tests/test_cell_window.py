@@ -10,15 +10,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iifea_tpu.mesh.generators import (
+from iifea.mesh.generators import (
     immersed_cube_problem,
     immersed_square_problem,
 )
-from iifea_tpu.models.poisson import PoissonProblem
-from iifea_tpu.ops import cell_window as cw
-from iifea_tpu.ops.lattice_bin import LatticeBinError
-from iifea_tpu.ops.projection import BackgroundOperator
-from iifea_tpu.ops.stencil import StencilOperator2D, StencilOperator3D
+from iifea.models.poisson import PoissonProblem
+from iifea.ops import cell_window as cw
+from iifea.ops.lattice_bin import LatticeBinError
+from iifea.ops.projection import BackgroundOperator
+from iifea.ops.stencil import StencilOperator2D, StencilOperator3D
 
 
 def _setup2d(n_bg=12, n_fg=17, dtype=np.float64):
@@ -77,8 +77,8 @@ def test_window_stencil_matches_general_3d():
 
 def test_window_df_apply_and_rhs_3d():
     """df operator application + rhs projection at ~1e-13 relative in 3D."""
-    from iifea_tpu.ops import df as dfm
-    from iifea_tpu.ops.projection import assemble_background_system
+    from iifea.ops import df as dfm
+    from iifea.ops.projection import assemble_background_system
 
     prob, M, shape = _setup3d(n_bg=5, n_fg=9)
     u0 = jnp.zeros(prob.space.n_dofs)
@@ -200,8 +200,8 @@ def test_window_spill_raises():
 
 def test_binned_lattice_solver_3d_end_to_end():
     """BinnedLatticeSolver on a 3D lattice: full df pipeline vs direct."""
-    from iifea_tpu.ops.projection import assemble_background_system
-    from iifea_tpu.solvers import BinnedLatticeSolver, solve_ksp
+    from iifea.ops.projection import assemble_background_system
+    from iifea.solvers import BinnedLatticeSolver, solve_ksp
 
     prob, M, shape = _setup3d(n_bg=8, n_fg=14)
     solver = BinnedLatticeSolver(prob, M, shape)
@@ -230,9 +230,9 @@ def test_window_reducers_match_binned_2d(monkeypatch):
     """IIFEA_2D_WINDOW=1 (cell-window congruence reducers in 2D) must
     reproduce the color-probe binned pipeline's solution."""
     import numpy as np
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.poisson import PoissonProblem
-    from iifea_tpu.solvers.lattice_fast import BinnedLatticeSolver
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.poisson import PoissonProblem
+    from iifea.solvers.lattice_fast import BinnedLatticeSolver
 
     n_bg = 48
     mesh, M = immersed_square_problem(

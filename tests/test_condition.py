@@ -2,7 +2,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from iifea_tpu.solvers.condition import estimate_condition_number
+from iifea.solvers.condition import estimate_condition_number
 
 
 class DenseOp:

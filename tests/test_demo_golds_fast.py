@@ -20,7 +20,7 @@ FLOAT = r"([-+0-9.eE]+)"
 
 
 def run_demo(args, timeout=600):
-    env = dict(os.environ, IIFEA_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     p = subprocess.run(
         [sys.executable] + args, capture_output=True, text=True,
         timeout=timeout, cwd=HERE, env=env,

@@ -5,7 +5,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from iifea_tpu.ops import df
+from iifea.ops import df
 
 
 def _rand(n, seed, scale=1.0):

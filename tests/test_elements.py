@@ -2,7 +2,7 @@
 import numpy as np
 import pytest
 
-from iifea_tpu.ops.reference_elements import ReferenceElement
+from iifea.ops.reference_elements import ReferenceElement
 
 
 @pytest.mark.parametrize("dim", [2, 3])

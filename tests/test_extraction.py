@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from iifea_tpu.ops.extraction import ExtractionOperator
+from iifea.ops.extraction import ExtractionOperator
 
 REF = "/root/reference/meshes/square/Linear/R0"
 
@@ -72,7 +72,7 @@ def test_locate_structured_box_matches_general():
     """Analytic Kuhn-tet location == the general bucket search, and the
     interpolation weights it feeds reproduce linear functions exactly."""
     import numpy as np
-    from iifea_tpu.mesh.generators import (
+    from iifea.mesh.generators import (
         box_mesh,
         locate_cells,
         locate_structured_box,

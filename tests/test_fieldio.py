@@ -5,15 +5,15 @@ import os
 import numpy as np
 import pytest
 
-from iifea_tpu.mesh.generators import box_mesh, rectangle_mesh
-from iifea_tpu.utils.fieldio import PVDSeries, read_vtu, write_vtu
+from iifea.mesh.generators import box_mesh, rectangle_mesh
+from iifea.utils.fieldio import PVDSeries, read_vtu, write_vtu
 
 
 @pytest.mark.parametrize("dim,degree,ctype", [
     (2, 1, 5), (2, 2, 22), (3, 1, 10), (3, 2, 24),
 ])
 def test_vtu_roundtrip(tmp_path, dim, degree, ctype):
-    from iifea_tpu.mesh.core import FunctionSpace
+    from iifea.mesh.core import FunctionSpace
 
     mesh = (rectangle_mesh((0, 0), (1, 1), 3, 3) if dim == 2
             else box_mesh((0, 0, 0), (1, 1, 1), 2, 2, 2))
@@ -46,7 +46,7 @@ def test_vtu_roundtrip(tmp_path, dim, degree, ctype):
 def test_vtu_interleaved_flat_vector(tmp_path):
     """Flat node-interleaved fg vectors (dof = node*nf + field) reshape to
     per-node components inside the writer."""
-    from iifea_tpu.mesh.core import FunctionSpace
+    from iifea.mesh.core import FunctionSpace
 
     mesh = rectangle_mesh((0, 0), (1, 1), 2, 2)
     V = FunctionSpace(mesh, degree=1, n_fields=2)

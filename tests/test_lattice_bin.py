@@ -4,16 +4,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iifea_tpu.mesh.generators import immersed_square_problem
-from iifea_tpu.models.poisson import PoissonProblem
-from iifea_tpu.ops.lattice_bin import (
+from iifea.mesh.generators import immersed_square_problem
+from iifea.models.poisson import PoissonProblem
+from iifea.ops.lattice_bin import (
     LatticeBinError,
     LatticeBinnedTerm2D,
     build_binned_projection,
     probe_y_binned,
 )
-from iifea_tpu.ops.projection import BackgroundOperator
-from iifea_tpu.ops.stencil import StencilOperator2D
+from iifea.ops.projection import BackgroundOperator
+from iifea.ops.stencil import StencilOperator2D
 
 
 def _setup(n_bg=12, n_fg=17, dtype=np.float64):
@@ -94,8 +94,8 @@ def test_binned_probe_f32_close():
 def test_df_apply_matches_f64_general():
     """Binned double-float application reproduces the true f64 operator to
     ~1e-13 relative — the refinement-residual accuracy requirement."""
-    from iifea_tpu.ops import df as dfm
-    from iifea_tpu.ops.lattice_bin import (
+    from iifea.ops import df as dfm
+    from iifea.ops.lattice_bin import (
         apply_df_binned,
         bind_blocks_df_binned,
         probe_y_binned_bound,
@@ -135,7 +135,7 @@ def test_df_apply_matches_f64_general():
 
 def test_cell_stiffness_df():
     """df fast-path P1 stiffness matches the f64 autodiff element blocks."""
-    from iifea_tpu.ops import df as dfm
+    from iifea.ops import df as dfm
 
     _, prob, M = _setup(16, 23)
     u0 = jnp.zeros(prob.space.n_dofs)
@@ -150,9 +150,9 @@ def test_rhs_df_fast_path():
     """Gather-free df rhs (pointwise setup tables + binned Mᵀ projection)
     matches the general f64 assemble_background_system rhs to ~1e-14."""
     import jax
-    from iifea_tpu.ops import lattice_bin
-    from iifea_tpu.ops.df import df_to_f64
-    from iifea_tpu.ops.projection import assemble_background_system
+    from iifea.ops import lattice_bin
+    from iifea.ops.df import df_to_f64
+    from iifea.ops.projection import assemble_background_system
 
     for sym in (True, False):
         n_bg = 24
@@ -177,8 +177,8 @@ def test_binned_lattice_solver_end_to_end():
     """BinnedLatticeSolver (the full gather-free df pipeline as a library
     API) matches the direct solver on supported dofs and hits the f64
     residual target."""
-    from iifea_tpu.ops.projection import assemble_background_system
-    from iifea_tpu.solvers import BinnedLatticeSolver, solve_ksp
+    from iifea.ops.projection import assemble_background_system
+    from iifea.solvers import BinnedLatticeSolver, solve_ksp
 
     n_bg = 24
     mesh, M = immersed_square_problem(n_fg=48, n_bg=n_bg)
@@ -200,7 +200,7 @@ def test_binned_lattice_solver_end_to_end():
 @pytest.mark.parametrize("n_bg,n_fg", [(12, 17), (16, 23), (9, 12)])
 def test_direct_stencil_matches_probe(n_bg, n_fg):
     """Direct window-congruence assembly == the 25-color probe (f64 exact)."""
-    from iifea_tpu.ops.lattice_bin import stencil_planes_binned
+    from iifea.ops.lattice_bin import stencil_planes_binned
 
     _, prob, M = _setup(n_bg, n_fg)
     shape = (n_bg + 1, n_bg + 1)
@@ -226,7 +226,7 @@ def test_direct_stencil_matches_probe(n_bg, n_fg):
 
 def test_direct_stencil_slab_chunking():
     """Tiny slab budget forces the lax.scan slab path; result unchanged."""
-    from iifea_tpu.ops.lattice_bin import stencil_planes_binned
+    from iifea.ops.lattice_bin import stencil_planes_binned
 
     _, prob, M = _setup(16, 23)
     shape = (17, 17)

@@ -2,12 +2,12 @@
 import numpy as np
 import jax.numpy as jnp
 
-from iifea_tpu.mesh.generators import immersed_square_problem
-from iifea_tpu.models.poisson import PoissonProblem
-from iifea_tpu.ops.multigrid import StencilMultigrid
-from iifea_tpu.ops.projection import BackgroundOperator
-from iifea_tpu.ops.stencil import StencilOperator2D
-from iifea_tpu.solvers import krylov
+from iifea.mesh.generators import immersed_square_problem
+from iifea.models.poisson import PoissonProblem
+from iifea.ops.multigrid import StencilMultigrid
+from iifea.ops.projection import BackgroundOperator
+from iifea.ops.stencil import StencilOperator2D
+from iifea.solvers import krylov
 
 
 def _stencil(n_bg=32):
@@ -61,8 +61,8 @@ def test_mg_vcycle_is_linear():
 
 
 def _stencil3(n_bg=12, n_fg=18):
-    from iifea_tpu.mesh.generators import immersed_cube_problem
-    from iifea_tpu.ops.stencil import StencilOperator3D
+    from iifea.mesh.generators import immersed_cube_problem
+    from iifea.ops.stencil import StencilOperator3D
 
     mesh_f, M = immersed_cube_problem(n_fg=n_fg, n_bg=n_bg)
     prob = PoissonProblem(mesh_f, k=1, sym=True, beta_value=10)
@@ -77,7 +77,7 @@ def _stencil3(n_bg=12, n_fg=18):
 
 def test_mg3d_accelerates_cg():
     """3D V-cycle with a real hierarchy (13³ -> 7³) beats Jacobi-PCG."""
-    from iifea_tpu.ops.multigrid import StencilMultigrid3D
+    from iifea.ops.multigrid import StencilMultigrid3D
 
     S, b = _stencil3()
     mg = StencilMultigrid3D(S, min_size=5)
@@ -98,7 +98,7 @@ def test_mg3d_accelerates_cg():
 
 
 def test_mg3d_vcycle_is_linear():
-    from iifea_tpu.ops.multigrid import StencilMultigrid3D
+    from iifea.ops.multigrid import StencilMultigrid3D
 
     S, _ = _stencil3(n_bg=8, n_fg=12)
     mg = StencilMultigrid3D(S, min_size=3)
@@ -118,7 +118,7 @@ def test_coarsen_direct_matches_probe_2d():
     the probed R A P exactly, on a real immersed operator AND on a random
     stencil (incl. garbage in off-grid-column slots, which the matvec never
     reads but the direct contraction must mask)."""
-    from iifea_tpu.ops.multigrid import _coarsen, _coarsen_probe
+    from iifea.ops.multigrid import _coarsen, _coarsen_probe
 
     S, _ = _stencil(16)
     Sc_d, Sc_p = _coarsen(S), _coarsen_probe(S)
@@ -135,8 +135,8 @@ def test_coarsen_direct_matches_probe_2d():
 
 
 def test_coarsen_direct_matches_probe_3d():
-    from iifea_tpu.ops.multigrid import _coarsen3, _coarsen3_probe
-    from iifea_tpu.ops.stencil import StencilOperator3D
+    from iifea.ops.multigrid import _coarsen3, _coarsen3_probe
+    from iifea.ops.stencil import StencilOperator3D
 
     rng = np.random.default_rng(8)
     C = jnp.asarray(rng.standard_normal((125, 9, 11, 9)))
@@ -148,11 +148,11 @@ def test_coarsen_direct_matches_probe_3d():
 
 
 def test_coarsen_direct_matches_probe_block():
-    from iifea_tpu.ops.multigrid import (
+    from iifea.ops.multigrid import (
         _coarsen_block,
         _coarsen_block_probe,
     )
-    from iifea_tpu.ops.stencil import StencilOperatorBlock2D
+    from iifea.ops.stencil import StencilOperatorBlock2D
 
     rng = np.random.default_rng(9)
     C = jnp.asarray(rng.standard_normal((3, 3, 25, 13, 9)))
@@ -181,11 +181,11 @@ def test_chebyshev_smoother_option():
 
 
 def test_coarsen_direct_matches_probe_block3d():
-    from iifea_tpu.ops.multigrid import (
+    from iifea.ops.multigrid import (
         _coarsen_block3,
         _coarsen_block3_probe,
     )
-    from iifea_tpu.ops.stencil import StencilOperatorBlock3D
+    from iifea.ops.stencil import StencilOperatorBlock3D
 
     rng = np.random.default_rng(12)
     C = jnp.asarray(rng.standard_normal((2, 2, 125, 9, 9, 9)))
@@ -203,8 +203,8 @@ def test_block3d_probe_and_mg():
     operators additionally need BFR trimming / null-mode deflation before
     the coarse pseudo-inverse, as the 2D block ksp branch does."""
     import itertools
-    from iifea_tpu.ops.multigrid import StencilMultigridBlock3D
-    from iifea_tpu.ops.stencil import StencilOperatorBlock3D
+    from iifea.ops.multigrid import StencilMultigridBlock3D
+    from iifea.ops.stencil import StencilOperatorBlock3D
 
     shape = (13, 13, 13)
     C = np.zeros((125,) + shape)
@@ -223,7 +223,7 @@ def test_block3d_probe_and_mg():
     # probing the block operator's own matvec must reproduce it exactly on
     # in-grid slots (off-grid-column slots are never read by the matvec:
     # the probe correctly returns 0 there while the synthetic C holds -1)
-    from iifea_tpu.ops.multigrid import _offgrid_mask3
+    from iifea.ops.multigrid import _offgrid_mask3
 
     S2 = StencilOperatorBlock3D.probe_multi(
         S.mv_multi, shape, n_fields=2, radius=2, dtype=jnp.float64
@@ -248,8 +248,8 @@ def test_block3d_probe_and_mg():
 def test_coarsen3_chunked_matches_monolithic():
     """The chunked in-channel scan of _coarsen3 (the 3D bench HBM fix) is
     numerically the same RAP as the monolithic conv."""
-    import iifea_tpu.ops.multigrid as mgm
-    from iifea_tpu.ops.stencil import StencilOperator3D
+    import iifea.ops.multigrid as mgm
+    from iifea.ops.stencil import StencilOperator3D
 
     rng = np.random.default_rng(9)
     C = jnp.asarray(rng.standard_normal((125, 13, 9, 11)), jnp.float32)

@@ -4,9 +4,9 @@ import os
 import numpy as np
 import pytest
 
-from iifea_tpu.mesh import _native
-from iifea_tpu.mesh.core import Mesh, FunctionSpace
-from iifea_tpu.mesh.generators import box_mesh, rectangle_mesh
+from iifea.mesh import _native
+from iifea.mesh.core import Mesh, FunctionSpace
+from iifea.mesh.generators import box_mesh, rectangle_mesh
 
 pytestmark = pytest.mark.skipif(
     not _native.available(), reason="native library not built"

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iifea_tpu.mesh.generators import immersed_square_problem
-from iifea_tpu.models.poisson import PoissonProblem
-from iifea_tpu.ops.projection import BackgroundOperator, assemble_background_system
-from iifea_tpu.parallel.sharding import ShardedProjectedSystem, make_device_mesh
+from iifea.mesh.generators import immersed_square_problem
+from iifea.models.poisson import PoissonProblem
+from iifea.ops.projection import BackgroundOperator, assemble_background_system
+from iifea.parallel.sharding import ShardedProjectedSystem, make_device_mesh
 
 needs_devices = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -77,7 +77,7 @@ def test_sharded_step_solves(setup):
     # compare against the unsharded solve
     u0 = jnp.zeros(prob.space.n_dofs)
     A, b = assemble_background_system(prob.form, u0, M)
-    from iifea_tpu.solvers import solve_ksp
+    from iifea.solvers import solve_ksp
 
     u_ref, _ = solve_ksp(A, b, method="cg", pc="jacobi", monitor=False,
                          rtol=1e-10)
@@ -99,8 +99,8 @@ def test_device_count_invariance(setup, n_dev):
 
 @needs_devices
 def test_sharded_stencil_mv_matches_single(setup):
-    from iifea_tpu.ops.stencil import StencilOperator2D
-    from iifea_tpu.parallel.stencil import ShardedStencil2D
+    from iifea.ops.stencil import StencilOperator2D
+    from iifea.parallel.stencil import ShardedStencil2D
 
     prob, M = setup
     n_bg = 12
@@ -112,16 +112,16 @@ def test_sharded_stencil_mv_matches_single(setup):
     Ssh = ShardedStencil2D(S, mesh)
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.standard_normal(S.n))
-    y_ref = np.asarray(S.mv_ref(x))
+    y_ref = np.asarray(S.mv(x))
     y_sh = np.asarray(Ssh.mv(x))
     assert np.allclose(y_sh, y_ref, atol=1e-12 * max(np.abs(y_ref).max(), 1))
 
 
 @needs_devices
 def test_sharded_stencil_cg(setup):
-    from iifea_tpu.ops.stencil import StencilOperator2D
-    from iifea_tpu.parallel.stencil import ShardedStencil2D
-    from iifea_tpu.solvers import krylov
+    from iifea.ops.stencil import StencilOperator2D
+    from iifea.parallel.stencil import ShardedStencil2D
+    from iifea.solvers import krylov
 
     prob, M = setup
     n_bg = 12
@@ -159,8 +159,8 @@ def test_sharded_bench_refine_matches_single():
     reaches the same f64 residual as the single-device BinnedLatticeSolver
     and agrees on well-supported dofs (VERDICT r1 item 10)."""
     import bench
-    from iifea_tpu.solvers.lattice_fast import BinnedLatticeSolver
-    from iifea_tpu.mesh.generators import immersed_square_problem
+    from iifea.solvers.lattice_fast import BinnedLatticeSolver
+    from iifea.mesh.generators import immersed_square_problem
 
     n_bg = 24
     x_sh, info = bench.run_sharded(n_bg, 8, rtol=1e-10)
@@ -186,9 +186,9 @@ def test_sharded_bench_refine_matches_single():
 def test_sharded_stencil3d_mv_matches_single():
     """3D slab-sharded stencil apply == single-device mv (raw immersed
     operator from the synthetic cube)."""
-    from iifea_tpu.mesh.generators import immersed_cube_problem
-    from iifea_tpu.ops.stencil import StencilOperator3D
-    from iifea_tpu.parallel.stencil import ShardedStencil3D
+    from iifea.mesh.generators import immersed_cube_problem
+    from iifea.ops.stencil import StencilOperator3D
+    from iifea.parallel.stencil import ShardedStencil3D
 
     n_bg = 8
     mesh_f, M = immersed_cube_problem(n_fg=16, n_bg=n_bg)
@@ -210,10 +210,10 @@ def test_sharded_stencil3d_mv_matches_single():
 def test_sharded_stencil_block2d_mv_matches_single():
     """Block (vector) row-sharded stencil apply == single-device mv
     (synthetic immersed elasticity operator, n_fields=2)."""
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.elasticity import ImmersedElasticityProblem
-    from iifea_tpu.ops.stencil import StencilOperatorBlock2D
-    from iifea_tpu.parallel.stencil import ShardedStencilBlock2D
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.elasticity import ImmersedElasticityProblem
+    from iifea.ops.stencil import StencilOperatorBlock2D
+    from iifea.parallel.stencil import ShardedStencilBlock2D
 
     n_bg = 12
     mesh_f, M = immersed_square_problem(n_fg=24, n_bg=n_bg, n_fields=2)

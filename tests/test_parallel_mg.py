@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iifea_tpu.parallel.sharding import make_device_mesh
+from iifea.parallel.sharding import make_device_mesh
 
 needs_devices = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -21,10 +21,10 @@ def test_sharded_mg2d_minv_matches_single():
     """V-cycle output parity on the real immersed cut-cell operator (f32
     planes from the binned pipeline), fine level row-sharded over 8
     devices, coarse level replicated."""
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.poisson import PoissonProblem
-    from iifea_tpu.parallel.multigrid import ShardedMultigrid2D
-    from iifea_tpu.solvers.lattice_fast import BinnedLatticeSolver
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.poisson import PoissonProblem
+    from iifea.parallel.multigrid import ShardedMultigrid2D
+    from iifea.solvers.lattice_fast import BinnedLatticeSolver
 
     n_bg = 64
     mesh_f, M = immersed_square_problem(
@@ -54,11 +54,11 @@ def test_sharded_mg2d_minv_matches_single():
 def test_sharded_mg2d_padded_plane_interface():
     """minv_padded consumes/produces the row-padded sharded planes of
     parallel/stencil.ShardedStencil2D (the bench --devices layout)."""
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.poisson import PoissonProblem
-    from iifea_tpu.parallel.multigrid import ShardedMultigrid2D
-    from iifea_tpu.parallel.stencil import ShardedStencil2D
-    from iifea_tpu.solvers.lattice_fast import BinnedLatticeSolver
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.poisson import PoissonProblem
+    from iifea.parallel.multigrid import ShardedMultigrid2D
+    from iifea.parallel.stencil import ShardedStencil2D
+    from iifea.solvers.lattice_fast import BinnedLatticeSolver
 
     n_bg = 64
     mesh_f, M = immersed_square_problem(
@@ -89,9 +89,9 @@ def test_sharded_mg2d_padded_plane_interface():
 def test_sharded_mg3d_minv_matches_single():
     """3D x-slab-sharded V-cycle parity (f64 analytic Dirichlet Laplacian,
     3-level hierarchy)."""
-    from iifea_tpu.ops.multigrid import StencilMultigrid3D
-    from iifea_tpu.ops.stencil import dirichlet_laplace_3d
-    from iifea_tpu.parallel.multigrid import ShardedMultigrid3D
+    from iifea.ops.multigrid import StencilMultigrid3D
+    from iifea.ops.stencil import dirichlet_laplace_3d
+    from iifea.parallel.multigrid import ShardedMultigrid3D
 
     S = dirichlet_laplace_3d((33, 33, 33))
     mg = StencilMultigrid3D(S)
@@ -112,12 +112,12 @@ def test_sharded_mg_pcg_solves():
     """End-to-end: sharded CG preconditioned by the SHARDED V-cycle (no
     un-shard anywhere in the loop) converges and matches the single-device
     MG-PCG solution on supported dofs."""
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.poisson import PoissonProblem
-    from iifea_tpu.parallel.multigrid import ShardedMultigrid2D
-    from iifea_tpu.parallel.stencil import ShardedStencil2D
-    from iifea_tpu.solvers import krylov
-    from iifea_tpu.solvers.lattice_fast import BinnedLatticeSolver
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.poisson import PoissonProblem
+    from iifea.parallel.multigrid import ShardedMultigrid2D
+    from iifea.parallel.stencil import ShardedStencil2D
+    from iifea.solvers import krylov
+    from iifea.solvers.lattice_fast import BinnedLatticeSolver
 
     n_bg = 64
     mesh_f, M = immersed_square_problem(
@@ -159,14 +159,14 @@ def test_sharded_mg_pcg_solves():
 def test_sharded_mg_block2d_minv_matches_single():
     """Block (vector-field) sharded V-cycle parity on a synthetic immersed
     elasticity operator (nF=2), plus end-to-end sharded block MG-CG."""
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.elasticity import ImmersedElasticityProblem
-    from iifea_tpu.ops.multigrid import StencilMultigridBlock
-    from iifea_tpu.ops.projection import BackgroundOperator
-    from iifea_tpu.ops.stencil import StencilOperatorBlock2D
-    from iifea_tpu.parallel.multigrid import ShardedMultigridBlock2D
-    from iifea_tpu.parallel.stencil import ShardedStencilBlock2D
-    from iifea_tpu.solvers import krylov
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.elasticity import ImmersedElasticityProblem
+    from iifea.ops.multigrid import StencilMultigridBlock
+    from iifea.ops.projection import BackgroundOperator
+    from iifea.ops.stencil import StencilOperatorBlock2D
+    from iifea.parallel.multigrid import ShardedMultigridBlock2D
+    from iifea.parallel.stencil import ShardedStencilBlock2D
+    from iifea.solvers import krylov
 
     n_bg = 24
     mesh_f, M = immersed_square_problem(n_fg=48, n_bg=n_bg, n_fields=2)

@@ -10,11 +10,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from iifea_tpu.mesh.generators import immersed_square_problem
-from iifea_tpu.models.poisson import PoissonProblem
-from iifea_tpu.ops.extraction import ExtractionOperator
-from iifea_tpu.ops.projection import assemble_background_system
-from iifea_tpu.solvers.ksp import solve_ksp
+from iifea.mesh.generators import immersed_square_problem
+from iifea.models.poisson import PoissonProblem
+from iifea.ops.extraction import ExtractionOperator
+from iifea.ops.projection import assemble_background_system
+from iifea.solvers.ksp import solve_ksp
 
 REF = "/root/reference/meshes"
 
@@ -59,7 +59,7 @@ def test_identity_extraction_matches_fitted():
 @pytest.mark.skipif(not os.path.exists(REF), reason="reference data not mounted")
 @pytest.mark.parametrize("ref,expected_l2", [(2, 0.20), (3, 0.055), (4, 0.015)])
 def test_reference_meshes_linear(ref, expected_l2):
-    from iifea_tpu.mesh.io import read_mesh
+    from iifea.mesh.io import read_mesh
 
     path = f"{REF}/square/Linear/R{ref}"
     mesh = read_mesh(path)
@@ -76,7 +76,7 @@ def test_reference_meshes_linear(ref, expected_l2):
 
 @pytest.mark.skipif(not os.path.exists(REF), reason="reference data not mounted")
 def test_direct_matches_iterative():
-    from iifea_tpu.mesh.io import read_mesh
+    from iifea.mesh.io import read_mesh
 
     path = f"{REF}/square/Linear/R2"
     mesh = read_mesh(path)

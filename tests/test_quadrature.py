@@ -4,7 +4,7 @@ from math import factorial
 import numpy as np
 import pytest
 
-from iifea_tpu.ops.quadrature import (
+from iifea.ops.quadrature import (
     facet_rule,
     interval_rule,
     tet_rule,

@@ -3,9 +3,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from iifea_tpu.solvers import krylov
-from iifea_tpu.solvers.direct import solve_direct
-from iifea_tpu.solvers.precond import jacobi
+from iifea.solvers import krylov
+from iifea.solvers.direct import solve_direct
+from iifea.solvers.precond import jacobi
 
 
 def make_spd(n, seed=0):
@@ -127,10 +127,10 @@ def test_direct_iterative_fallback_3d():
     check (non-axis-aligned near-null subspace, cond ~1e19): solve_direct
     must fall back to Jacobi-PCG and return a bounded, accurate solution
     (it returned |x| ~ 1e19, L2 error 0.63 before)."""
-    from iifea_tpu.mesh.generators import immersed_cube_problem
-    from iifea_tpu.models.poisson import PoissonProblem
-    from iifea_tpu.ops.projection import assemble_background_system
-    from iifea_tpu.solvers.ksp import solve_ksp
+    from iifea.mesh.generators import immersed_cube_problem
+    from iifea.models.poisson import PoissonProblem
+    from iifea.ops.projection import assemble_background_system
+    from iifea.solvers.ksp import solve_ksp
 
     mesh, M = immersed_cube_problem(n_fg=32, n_bg=27)
     prob = PoissonProblem(mesh, k=1, sym=True, beta_value=10)
@@ -157,10 +157,10 @@ def test_nonzero_initial_guess():
 def test_solve_ksp_mg_pc():
     """pc='mg' (stencil probe + V-cycle) matches the jacobi-PC solution on a
     lattice background and converges in far fewer iterations."""
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.poisson import PoissonProblem
-    from iifea_tpu.ops.projection import assemble_background_system
-    from iifea_tpu.solvers.ksp import solve_ksp
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.poisson import PoissonProblem
+    from iifea.ops.projection import assemble_background_system
+    from iifea.solvers.ksp import solve_ksp
 
     n_bg = 32
     mesh_f, M = immersed_square_problem(n_fg=48, n_bg=n_bg)
@@ -185,10 +185,10 @@ def test_solve_ksp_mg_pc():
 
 def test_solve_ksp_mg_pc_3d():
     """pc='mg' on a 3D lattice (stencil probe + stencil-Jacobi)."""
-    from iifea_tpu.mesh.generators import immersed_cube_problem
-    from iifea_tpu.models.poisson import PoissonProblem
-    from iifea_tpu.ops.projection import assemble_background_system
-    from iifea_tpu.solvers.ksp import solve_ksp
+    from iifea.mesh.generators import immersed_cube_problem
+    from iifea.models.poisson import PoissonProblem
+    from iifea.ops.projection import assemble_background_system
+    from iifea.solvers.ksp import solve_ksp
 
     n_bg = 6
     mesh_f, M = immersed_cube_problem(n_fg=10, n_bg=n_bg)
@@ -212,11 +212,11 @@ def test_solve_ksp_mg_pc_3d():
 
 def test_solve_ksp_mg_pc_block():
     """pc='mg' with n_fields=2: block stencil probe + point-block-Jacobi."""
-    from iifea_tpu.mesh.core import FunctionSpace
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.ops.assembly import Form, Term, build_cell_domain
-    from iifea_tpu.ops.projection import BackgroundOperator
-    from iifea_tpu.solvers.ksp import solve_ksp
+    from iifea.mesh.core import FunctionSpace
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.ops.assembly import Form, Term, build_cell_domain
+    from iifea.ops.projection import BackgroundOperator
+    from iifea.solvers.ksp import solve_ksp
 
     n_bg = 10
     mesh_f, M = immersed_square_problem(n_fg=16, n_bg=n_bg, n_fields=2)
@@ -264,10 +264,10 @@ def test_solve_ksp_mg_pc_block():
 def test_newton_with_mg_fast_path():
     """solve_nonlinear(linear_pc='mg'): nonlinear diffusion on a lattice
     background, each Newton step re-probed onto the stencil fast path."""
-    from iifea_tpu.mesh.core import FunctionSpace
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.ops.assembly import Form, Term, build_cell_domain
-    from iifea_tpu.solvers.newton import solve_nonlinear
+    from iifea.mesh.core import FunctionSpace
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.ops.assembly import Form, Term, build_cell_domain
+    from iifea.solvers.newton import solve_nonlinear
 
     n_bg = 16
     mesh_f, M = immersed_square_problem(n_fg=24, n_bg=n_bg)
@@ -299,7 +299,7 @@ def test_newton_with_mg_fast_path():
     )
     scale = max(float(jnp.abs(u_p2).max()), 1.0)
     d = np.abs(np.asarray(
-        __import__("iifea_tpu.ops.projection", fromlist=["BackgroundOperator"])
+        __import__("iifea.ops.projection", fromlist=["BackgroundOperator"])
         .BackgroundOperator(form, form.jacobian_blocks(u_f), M).diag()
     )) > 0
     assert np.allclose(np.asarray(u_p)[d], np.asarray(u_p2)[d],
@@ -310,10 +310,10 @@ def test_tg_step_with_block_mg():
     """One TG/NS Newton time step on a synthetic lattice background with
     linear_pc='mg' (StencilMultigridBlock end-to-end through the nonlinear
     driver — the VERDICT r1 item-4 demo-class solve)."""
-    from iifea_tpu.api import l2_project
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.navier_stokes import TaylorGreenProblem, u_exact
-    from iifea_tpu.solvers.newton import solve_nonlinear
+    from iifea.api import l2_project
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.navier_stokes import TaylorGreenProblem, u_exact
+    from iifea.solvers.newton import solve_nonlinear
 
     n, n_bg = 16, 8
     mesh_f, M = immersed_square_problem(n_fg=n, n_bg=n_bg, n_fields=3)
@@ -333,7 +333,7 @@ def test_tg_step_with_block_mg():
     # Selection must be by OPERATOR diagonal — an M-referenced dof can
     # still be dead (zero diagonal) if its fg dofs sit outside the
     # integration domain, and pinning a dead dof is a silent no-op.
-    from iifea_tpu.ops.projection import BackgroundOperator
+    from iifea.ops.projection import BackgroundOperator
 
     blocks0 = prob.form.jacobian_blocks(
         up_f, {"up_old": up_f}, {"t": jnp.asarray(0.5 * Dt)}
@@ -364,9 +364,9 @@ def test_newtons_linear_warm_start_pins_zero():
     pinned dofs must end at 0 (the defect-correction fixed point with
     target=u_p would park them at MINUS the initial guess), and unpinned
     dofs must match a cold-started solve."""
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.poisson import PoissonProblem
-    from iifea_tpu.solvers.newton import solve_newtons_linear
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.poisson import PoissonProblem
+    from iifea.solvers.newton import solve_newtons_linear
 
     mesh, M = immersed_square_problem(n_fg=18, n_bg=12)
     prob = PoissonProblem(mesh, k=1, sym=True, beta_value=10)
@@ -388,7 +388,7 @@ def test_newtons_linear_warm_start_pins_zero():
     # compare on SUPPORTED dofs only: zero-row (unsupported) dofs keep
     # whatever the initial guess put there — they never enter the residual
     # and carry no foreground meaning
-    from iifea_tpu.ops.projection import (
+    from iifea.ops.projection import (
         BackgroundOperator,
         assemble_background_system,
     )
@@ -407,10 +407,10 @@ def test_block_diag_exact_and_bjacobi_beats_jacobi():
     dof = node + field*m), and pc='bjacobi' must converge in no more — on
     the coupled vector system, strictly fewer — GMRES iterations than
     pointwise jacobi (PCBJACOBI role, common.py:568-616)."""
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.elasticity import ImmersedElasticityProblem
-    from iifea_tpu.ops.projection import assemble_background_system
-    from iifea_tpu.solvers.ksp import solve_ksp
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.elasticity import ImmersedElasticityProblem
+    from iifea.ops.projection import assemble_background_system
+    from iifea.solvers.ksp import solve_ksp
 
     mesh_f, M = immersed_square_problem(n_fg=16, n_bg=8, degree=1,
                                         n_fields=2)
@@ -449,10 +449,10 @@ def test_block_diag_exact_and_bjacobi_beats_jacobi():
 def test_bjacobi_single_field_degrades_to_jacobi():
     import warnings as _w
 
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.poisson import PoissonProblem
-    from iifea_tpu.ops.projection import assemble_background_system
-    from iifea_tpu.solvers.ksp import solve_ksp
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.poisson import PoissonProblem
+    from iifea.ops.projection import assemble_background_system
+    from iifea.solvers.ksp import solve_ksp
 
     mesh_f, M = immersed_square_problem(n_fg=12, n_bg=6)
     prob = PoissonProblem(mesh_f, k=1, sym=True, beta_value=10)
@@ -475,10 +475,10 @@ def test_newton_line_search_globalizes():
     and oscillate — plain Newton (the reference's only rescue is a fixed
     relax_param, common.py:474) fails, the Armijo backtracking variant
     converges."""
-    from iifea_tpu.mesh.core import FunctionSpace
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.ops.assembly import Form, Term, build_cell_domain
-    from iifea_tpu.solvers.newton import (
+    from iifea.mesh.core import FunctionSpace
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.ops.assembly import Form, Term, build_cell_domain
+    from iifea.solvers.newton import (
         NonlinearSolveError,
         solve_nonlinear,
     )
@@ -521,10 +521,10 @@ def test_asm_preconditioner_small():
     converges and beats jacobi in iterations on the immersed Poisson system.
     ASM consumes only the CSR graph of the projected operator — no lattice
     structure assumed (the strong-PC option where pc='mg' does not apply)."""
-    from iifea_tpu.mesh.generators import immersed_square_problem
-    from iifea_tpu.models.poisson import PoissonProblem
-    from iifea_tpu.ops.projection import assemble_background_system
-    from iifea_tpu.solvers.ksp import solve_ksp
+    from iifea.mesh.generators import immersed_square_problem
+    from iifea.models.poisson import PoissonProblem
+    from iifea.ops.projection import assemble_background_system
+    from iifea.solvers.ksp import solve_ksp
 
     mesh_f, M = immersed_square_problem(n_fg=48, n_bg=24)
     prob = PoissonProblem(mesh_f, k=1, sym=True, beta_value=10)
@@ -551,12 +551,12 @@ def test_asm_beats_jacobi_kirsch_k2():
     Measured: 24 vs 117 iterations (4.9x)."""
     import os
 
-    from iifea_tpu.mesh.core import Mesh
-    from iifea_tpu.mesh.io import read_mesh
-    from iifea_tpu.models.elasticity import ElasticityProblem
-    from iifea_tpu.ops.extraction import ExtractionOperator
-    from iifea_tpu.ops.projection import assemble_background_system
-    from iifea_tpu.solvers.ksp import solve_ksp
+    from iifea.mesh.core import Mesh
+    from iifea.mesh.io import read_mesh
+    from iifea.models.elasticity import ElasticityProblem
+    from iifea.ops.extraction import ExtractionOperator
+    from iifea.ops.projection import assemble_background_system
+    from iifea.solvers.ksp import solve_ksp
 
     path = "/root/reference/meshes/hole_in_plate/Quadratic/FG_R1/R2"
     if not os.path.isdir(path):

@@ -31,7 +31,7 @@ def write_exodus_netcdf3(path, points, blocks):
 
 
 def test_convert_linear_triangles(tmp_path):
-    from iifea_tpu.mesh.io import read_mesh
+    from iifea.mesh.io import read_mesh
 
     # two blocks over a 2x1 strip of 4 triangles, with an unused orphan node
     pts = np.array(
@@ -61,7 +61,7 @@ def test_convert_linear_triangles(tmp_path):
 
 def test_convert_quadratic_with_exops(tmp_path):
     import h5py
-    from iifea_tpu.mesh.io import read_mesh
+    from iifea.mesh.io import read_mesh
 
     # one TRI6 cell: corners 0,1,2 + midsides 3,4,5
     pts = np.array(

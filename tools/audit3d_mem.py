@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Host-side audit of the 3D BinnedLatticeSolver's persistent device arrays:
-prints every table's shape/dtype/GB so HBM OOMs can be attributed without
-burning a TPU compile cycle. Run with IIFEA_PLATFORM=cpu."""
+prints every table's shape/dtype/GB so device OOMs can be attributed without
+a device compile. Run with JAX_PLATFORMS=cpu."""
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
@@ -12,7 +13,7 @@ n_bg = int(sys.argv[1]) if len(sys.argv) > 1 else 100
 
 import jax
 from bench import build_problem
-from iifea_tpu.solvers.lattice_fast import BinnedLatticeSolver
+from iifea.solvers.lattice_fast import BinnedLatticeSolver
 
 mesh_f, prob64, M64 = build_problem(n_bg, np.float64, 3)
 print(f"cells={mesh_f.n_cells} fg_dofs={prob64.space.n_dofs} "
